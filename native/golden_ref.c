@@ -12,11 +12,11 @@
  *
  *   2. CPU BASELINE: the reference publishes no throughput numbers
  *      (SURVEY §6); this engine measured on one core is the
- *      "reference-class" baseline the TPU speedups are quoted against.
+ *      "reference-class" baseline for the JAX engines.
  *
  * Design is deliberately NOT the reference's: no pointer factor graph, no
  * per-node structs — dense (n+1) x N message arrays for BP (same layout as
- * the TPU engine) and the compact O(N) slot schedule for SC (same layout as
+ * the JAX engine) and the compact O(N) slot schedule for SC (same layout as
  * models/_compact.py).  Only the *semantics* (update equations, table
  * constants, PRNG stream, operation association) mirror the reference, with
  * citations in comments.
@@ -195,7 +195,7 @@ static void sc_decode(int N, int n, const double *ch_llr,
 }
 
 /* ---------------- SCL / CA-SCL decoder ----------------------------------- */
-/* Same algorithm as the TPU engines (models/scl.py, validated frame-for-frame
+/* Same algorithm as the JAX engines (models/scl.py, validated frame-for-frame
    against the reference's SCL_1024.c semantics by the golden fixtures):
    compact O(N) slot state per path, inactive paths at PM = BIG, and 2L -> L
    selection keeping the L smallest candidates with ties broken by candidate

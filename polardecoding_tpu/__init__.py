@@ -1,6 +1,7 @@
-"""polardecoding_tpu — TPU-native polar-code Monte-Carlo decoding framework.
+"""polardecoding_tpu — polar-code Monte-Carlo decoding framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the C reference
+A ground-up JAX/XLA re-design (with one CUDA kernel for BP on NVIDIA GPUs,
+native/bp_kernel.cu) of the capabilities of the C reference
 CHEBSB/PolarDecoding (see SURVEY.md): batched polar encode, BPSK/AWGN channel,
 BP / SC / SCL / CA-SCL decoders, BPr instrumentation, DE-GA analysis, and a
 sharded adaptive Monte-Carlo sweep harness.

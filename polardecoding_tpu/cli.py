@@ -5,7 +5,7 @@ workflow (SURVEY §7.8) as one tool with structured JSON results.
   python -m polardecoding_tpu.cli run --preset SCL_1024_L8 --snr 1.0 3.0 0.5
   python -m polardecoding_tpu.cli analyze --tool bprga --N 128 --K 64 --snr 1.0 4.0 0.5
   python -m polardecoding_tpu.cli plot --out curves.png bp128.json ...
-  python -m polardecoding_tpu.cli bench --preset BP_1024
+  python -m polardecoding_tpu.cli bench --preset BP_1024      (GPU only)
   python -m polardecoding_tpu.cli presets
 """
 from __future__ import annotations
@@ -133,26 +133,34 @@ def cmd_bench(args):
     import importlib.util as ilu
     import os
 
+    from polardecoding_tpu import runtime
+
+    runtime.require_gpu()
     spec = ilu.spec_from_file_location(
         "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py")
     )
     mod = ilu.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    fps = mod.bench_step(args.preset, args.batch)
-    print(json.dumps({"preset": args.preset, "frames_per_sec": round(fps, 1)}))
+    fps, compile_s = mod.bench_step(args.preset, args.batch)
+    print(json.dumps({"preset": args.preset, "frames_per_sec": fps,
+                      "compile_s": compile_s,
+                      "device": runtime.device_record()}))
 
 
 def cmd_scale(args):
+    from polardecoding_tpu import runtime
     from polardecoding_tpu.configs import preset
     from polardecoding_tpu.parallel.distributed import init_distributed, scaling_bench
 
     if args.distributed:
         init_distributed()
+    runtime.require_gpu()
     recs = scaling_bench(
         preset(args.preset), batch_per_device=args.batch_per_device,
         snr_db=args.snr_db,
     )
-    print(json.dumps(recs, indent=1))
+    device = runtime.device_record()
+    print(json.dumps([dict(r, device=device) for r in recs], indent=1))
 
 
 def cmd_presets(args):
@@ -222,13 +230,17 @@ def main(argv=None):
     sc.add_argument("--batch-per-device", type=int, default=1024)
     sc.add_argument("--snr-db", type=float, default=2.0)
     sc.add_argument("--distributed", action="store_true",
-                    help="initialize jax.distributed from cluster env first")
+                    help="initialize jax.distributed first (coordinator, "
+                         "process count and id from the JAX_* environment)")
     sc.set_defaults(fn=cmd_scale)
 
     ps = sub.add_parser("presets", help="list named presets")
     ps.set_defaults(fn=cmd_presets)
 
     args = ap.parse_args(argv)
+    from polardecoding_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -59,10 +59,6 @@ class DecoderConfig:
     bp_flavor: str = "minsum_lut"  # or "spa" (exact box-plus A/B variant)
     bp_early_stop: bool = False  # extension; reference runs fixed iterations
     bpr_checkpoints: Tuple[int, ...] = (3, 6, 10, 20, 40, 80)  # BPr_128.c:18-23
-    # approximate fast-SSC-list rate-1 shortcut (scl/cascl, TPU fast kernel):
-    # min all-info block width collapsed to a bounded-fork R1 node; 0 = exact
-    # reference semantics.  Opt-in flavor, BLER-qualified like chk_fast.
-    scl_r1: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,15 +164,13 @@ PRESETS = {
             SweepConfig(1.0, 3.5, error_blocks=200, seed=1024),
             "BASELINE.json 'BP_1024 with RGA/DEGA construction and early stopping'",
         ),
-        # Production-throughput flavors: identical configs with the algebraic
-        # chk rewrite (ops/chk.chk_fast, ulp-level non-identical to the
-        # reference).  Promoted to first-class presets after the HW A/B
-        # (results/hw_queue_r2/step4.log): +10.6% fixed-iteration / +6.1%
-        # wave-engine throughput, BLER statistically clean at 1000 error
-        # blocks at 4.0 dB for both N (ratio fast/default 0.998 @N=128,
-        # 0.991 @N=1024, both << the 3-sigma window) and at 2.0 dB
-        # (docs/ROOFLINE.md chk-fast section).  The exact-LUT presets above
-        # remain the golden-parity configurations.
+        # Throughput flavors: identical configs with the algebraic chk
+        # rewrite (ops/chk.chk_fast, ulp-level non-identical to the
+        # reference; ~12% fewer operations per check node).  BLER
+        # statistically clean at 1000 error blocks at 4.0 dB for both N
+        # (ratio fast/default 0.998 @N=128, 0.991 @N=1024, both << the
+        # 3-sigma window) and at 2.0 dB.  The exact-LUT presets above remain
+        # the golden-parity configurations.
         _p(
             "BP_128_FASTCHK",
             CodeConfig(128, 64),
@@ -241,47 +235,6 @@ PRESETS = {
             DecoderConfig("scl", list_size=8),
             SweepConfig(1.0, 3.0, error_blocks=200, seed=1024),
             "SCL_128_fag.c",
-        ),
-        # Production-throughput flavors: the bounded-fork rate-1 shortcut
-        # (scl_decode_fast r1=4, Hashemi-style fast-SSC-list; NOT
-        # ranking-preserving — hard PM drops the path-dependent lut(|l|)
-        # terms).  Promoted after the round-4 dispatch-floor fix exposed
-        # its true throughput (+28.7% kernel-only at N=1024 L=8:
-        # 464.6k vs 361.1k fps, results/hw_queue_r4/step17.log) on top of the
-        # established BLER qualification: 1000-error-block A/Bs clean at
-        # SCL_128_L8 (ratio 0.9991), SCL_1024_L8 (1.0048), CASCL_1024_L8
-        # (1.0203), 3-sigma window +-0.13 (docs/ROOFLINE.md).  The exact
-        # presets above remain the golden-parity configurations.
-        _p(
-            "SCL_128_L8_FASTR1",
-            CodeConfig(128, 64),
-            DecoderConfig("scl", list_size=8, scl_r1=4),
-            SweepConfig(1.0, 2.5, error_blocks=50, seed=1024),
-            "SCL_128.c + bounded-fork R1 (throughput flavor, BLER-validated)",
-        ),
-        _p(
-            "SCL_1024_L8_FASTR1",
-            CodeConfig(1024, 512),
-            DecoderConfig("scl", list_size=8, scl_r1=4),
-            SweepConfig(1.0, 3.0, error_blocks=50, seed=1024),
-            "SCL_1024.c + bounded-fork R1 (throughput flavor, BLER-validated)",
-        ),
-        _p(
-            "CASCL_1024_L8_FASTR1",
-            CodeConfig(1024, 512, crc=CRC24_EXPONENTS),
-            DecoderConfig("cascl", list_size=8, scl_r1=4),
-            SweepConfig(1.0, 2.5, error_blocks=100, seed=1024),
-            "CASCL_1024.c + bounded-fork R1 (throughput flavor, BLER-validated)",
-        ),
-        _p(
-            # L=16 qualification (r4): paired 1000-error-block A/B at
-            # 3.0 dB, ratio 1.002, 3-sigma 0.133 (step27_bler_l16.log);
-            # kernel-only +17.0% (results/hw_queue_r4/step22.log)
-            "SCL_1024_L16_FASTR1",
-            CodeConfig(1024, 512),
-            DecoderConfig("scl", list_size=16, scl_r1=4),
-            SweepConfig(1.0, 3.0, error_blocks=50, seed=1024),
-            "SCL_1024.c L=16 + bounded-fork R1 (throughput flavor, BLER-validated)",
         ),
         # --- CA-SCL family -----------------------------------------------
         _p(

@@ -2,7 +2,7 @@
 
 The reference keeps full (n+1) x N per-node state and walks it with recursive
 memoized functions (`getLLR` SC_128.c:344-365, `updateBit` SC_128.c:367-392).
-The TPU engine instead exploits the classic observation that at any point of
+The array engine instead exploits the classic observation that at any point of
 the serial bit loop only ONE group per stage is live: while decoding bit j,
 stage i's live LLR group is the contiguous block [(j >> i) << i, +2^i) and the
 live partial-sum group is its upper half awaiting a partner.  So all per-path
@@ -13,7 +13,7 @@ state packs into two length-(N-1) arrays whose stage-i slot (size 2^i, offset
   - bit slot i: the saved upper-half stage-i decided node values.
 
 Every access is a full-slot static slice — no dynamic indexing anywhere, which
-is exactly what Mosaic/XLA want.  The stage-n LLRs are the (path-independent)
+is exactly what XLA wants.  The stage-n LLRs are the (path-independent)
 channel LLRs and are passed separately.  The per-bit schedule is:
 
   t  = ntz(j)   (n for j = 0): one g-update at stage t, then f-updates (CHK)

@@ -12,10 +12,12 @@ Reference semantics (BP_128.c:334-389, BP_1024.c, BP_128_fag.c:349-403):
         L'[i, d]   = L[i+1, d] + CHK(R[i, u], L[i+1, u])
   - decision after iterMax iterations: u_hat = sign(L[0] + R[0]) on info bits.
 
-TPU design: no pointer graph — stage i's butterflies are a reshape of the N axis
-into [N/2d, 2, d] (d = 2^i) and a batched elementwise CHK over the halves; the
-whole iteration runs under `lax.fori_loop` (or `lax.while_loop` with the
-early-stop extension).  Batched over frames on the leading axis.
+Array design: no pointer graph — stage i's butterflies are a reshape of the N
+axis into [N/2d, 2, d] (d = 2^i) and a batched elementwise CHK over the halves;
+the whole iteration runs under `lax.fori_loop` (or `lax.while_loop` with the
+early-stop extension).  Batched over frames on the leading axis.  These plain
+engines are the reference; on the GPU the `*_auto` / `bp_wave_fused` entry
+points run the shared-memory CUDA kernel of ops/bp_kernel.py instead.
 
 Graph conventions: the Kao ("_fag") wiring is the Lee wiring under per-stage
 bit-reversal relabeling, with channel/frozen/output maps that also become the
@@ -169,26 +171,27 @@ def bp_decode(
     return decision(Larr, Rarr)
 
 
+def use_kernel(engine: str) -> bool:
+    """Engine choice shared by the BP entry points: "auto" takes the CUDA
+    kernel (ops/bp_kernel.py) on the GPU and the plain engine elsewhere;
+    "jnp" always takes the plain engine; "kernel" always takes the kernel
+    (on the CPU that is its serial host build, which exists for tests)."""
+    if engine not in ("auto", "jnp", "kernel"):
+        raise ValueError(f"unknown BP engine {engine!r}")
+    if engine == "auto":
+        return jax.default_backend() == "gpu"
+    return engine == "kernel"
+
+
 def bp_decode_auto(ch_llr, frozen, iters=100, flavor="minsum_lut",
                    early_stop_every=0, engine="auto"):
-    """Dispatch to the Pallas VMEM-resident kernel on TPU backends (2-3x the
-    fused-jnp path at N=1024; see ops/pallas/bp_kernel.py), falling back to
-    the jnp engine elsewhere.  engine="jnp" forces the fused-jnp path (e.g.
-    for non-f32 message dtypes: Mosaic cannot lower dynamic_rotate on
-    sub-32-bit data, so the Pallas kernel is f32-only)."""
-    backend = jax.default_backend()
-    on_tpu = backend not in ("cpu", "gpu")
-    B = ch_llr.shape[0]
-    if engine == "jnp":
-        on_tpu = False
-    if on_tpu and ch_llr.dtype != jnp.float32:
-        raise ValueError(
-            "Pallas BP kernel is f32-only (Mosaic dynamic_rotate); "
-            "pass engine='jnp' for other message dtypes")
-    if on_tpu and B % 8 == 0:
-        from polardecoding_tpu.ops.pallas.bp_kernel import bp_decode_pallas
+    """bp_decode on the engine `engine` selects (see use_kernel).  The
+    kernel runs float32 messages only: on the GPU any other dtype raises
+    KernelUnsupported, and engine="jnp" is the way to run it."""
+    if use_kernel(engine):
+        from polardecoding_tpu.ops.bp_kernel import bp_decode_kernel
 
-        return bp_decode_pallas(ch_llr, frozen, iters=iters, flavor=flavor,
+        return bp_decode_kernel(ch_llr, frozen, iters=iters, flavor=flavor,
                                 early_stop_every=early_stop_every)
     return bp_decode(ch_llr, frozen, iters=iters, flavor=flavor,
                      early_stop_every=early_stop_every)
@@ -209,10 +212,9 @@ def bp_decode_auto(ch_llr, frozen, iters=100, flavor="minsum_lut",
 
 
 def wave_init_state(ch_llr, frozen):
-    """Pack fresh BP message state [2(n+1), B, N] (stage-major — each stage
-    is a contiguous [B, N] plane, which is what the Pallas wave kernel can
-    tile): planes 0..n = L (L[n] = the channel LLRs), planes n+1..2n+1 = R
-    (R[0] = frozen 999/0)."""
+    """Pack fresh BP message state [2(n+1), B, N] (stage-major: each stage
+    is a contiguous [B, N] plane): planes 0..n = L (L[n] = the channel
+    LLRs), planes n+1..2n+1 = R (R[0] = frozen 999/0)."""
     B, N = ch_llr.shape
     n = N.bit_length() - 1
     dt = ch_llr.dtype
@@ -223,8 +225,8 @@ def wave_init_state(ch_llr, frozen):
 
 
 @functools.partial(jax.jit, static_argnames=("iters", "flavor"))
-def bp_wave_jnp(state, iters: int = 8, flavor: str = "minsum_lut"):
-    """Advance packed state by `iters` BP iterations (jnp fallback)."""
+def bp_wave(state, iters: int = 8, flavor: str = "minsum_lut"):
+    """Advance packed state by `iters` BP iterations."""
     chk_fn = {"minsum_lut": chk, "minsum_lut_fast": chk_fast,
               "spa": chk_exact}[flavor]
     S2 = state.shape[0]
@@ -237,15 +239,6 @@ def bp_wave_jnp(state, iters: int = 8, flavor: str = "minsum_lut"):
         return jnp.stack(Ls + Rs, axis=0)
 
     return lax.fori_loop(0, iters, body, state)
-
-
-def bp_wave(state, iters: int = 8, flavor: str = "minsum_lut"):
-    """Backend dispatch for the wave advance."""
-    if jax.default_backend() not in ("cpu", "gpu") and state.shape[1] % 8 == 0:
-        from polardecoding_tpu.ops.pallas.bp_kernel import bp_wave_pallas
-
-        return bp_wave_pallas(state, iters=iters, flavor=flavor)
-    return bp_wave_jnp(state, iters=iters, flavor=flavor)
 
 
 def wave_decide(state, frozen):
@@ -265,7 +258,7 @@ def wave_merge(state, ch_llr, retire):
     """Re-initialize retired slots' planes from fresh channel LLRs in place:
     L[n] <- llr, every other L/R plane <- 0 for slots where retire is True.
     R[0] (the frozen 999/0 row) is identical for every frame and untouched.
-    Same merge the fused Pallas kernel performs at its head."""
+    Same merge the fused wave kernel performs at its head."""
     S2, B, N = state.shape
     n = S2 // 2 - 1
     r0 = state[n + 1]
@@ -280,8 +273,8 @@ def wave_merge(state, ch_llr, retire):
 def bp_wave_fused_jnp(state, ch_llr, retire, iters: int = 8,
                       flavor: str = "minsum_lut", check_every: int = 0):
     """jnp reference for the fused wave step: merge -> advance -> decide.
-    Bit-identical to the fused Pallas kernel (ops/pallas/bp_kernel.py::
-    bp_wave_fused_pallas), including the check_every > 0 in-wave per-frame
+    Bit-identical to the fused wave kernel (ops/bp_kernel.py::
+    bp_wave_fused_kernel), including the check_every > 0 in-wave per-frame
     latch (a frame's (u, done) freeze at its own first passing check)."""
     chk_fn = {"minsum_lut": chk, "minsum_lut_fast": chk_fast,
               "spa": chk_exact}[flavor]
@@ -308,215 +301,23 @@ def bp_wave_fused_jnp(state, ch_llr, retire, iters: int = 8,
             0, iters, wbody, (state, done0, jnp.zeros((B, N), jnp.int8)))
         u_fin, _ = wave_decide(state, frozen)
         return state, jnp.where(done[:, None], u_lat, u_fin), done
-    state = bp_wave_jnp(state, iters=iters, flavor=flavor)
+    state = bp_wave(state, iters=iters, flavor=flavor)
     u_hat, done = wave_decide(state, frozen)
     return state, u_hat, done
 
 
 def bp_wave_fused(state, ch_llr, retire, iters: int = 8,
-                  flavor: str = "minsum_lut", check_every: int = 0):
-    """Backend dispatch for the fused wave step (one kernel per wave:
-    refill-merge + K iterations + G-matrix decide — saves the decide and
-    where-merge full-state XLA passes the unfused path pays per wave)."""
-    if jax.default_backend() not in ("cpu", "gpu") and state.shape[1] % 8 == 0:
-        from polardecoding_tpu.ops.pallas.bp_kernel import bp_wave_fused_pallas
+                  flavor: str = "minsum_lut", check_every: int = 0,
+                  engine: str = "auto"):
+    """The fused wave step (refill-merge + K iterations + G-matrix decide)
+    on the engine `engine` selects (see use_kernel)."""
+    if use_kernel(engine):
+        from polardecoding_tpu.ops.bp_kernel import bp_wave_fused_kernel
 
-        return bp_wave_fused_pallas(state, ch_llr, retire, iters=iters,
+        return bp_wave_fused_kernel(state, ch_llr, retire, iters=iters,
                                     flavor=flavor, check_every=check_every)
     return bp_wave_fused_jnp(state, ch_llr, retire, iters=iters,
                              flavor=flavor, check_every=check_every)
-
-
-# ---------------------------------------------------------------------------
-# In-kernel Monte-Carlo wave engine (v3): the whole MC step — refill
-# generation (payload table + GF(2) re-encode + PRNG-bits Gaussian channel),
-# K iterations, per-iteration G-matrix retirement with a one-spare-per-wave
-# refill, and error counting — runs inside one Pallas kernel
-# (ops/pallas/bp_kernel._bp_wave_mc_kernel); the jnp twin below pins the
-# semantics bit-for-bit (tests/test_wave_mc.py, interpret mode).
-#
-# Engine contract (differs from the fused wave engine — opt-in, qualified):
-# slot s decodes frames s, s+B, s+2B, ... (payload = pure function of the
-# frame index, as everywhere); a frame's noise is the spare generated at the
-# head of the wave it entered — deterministic in (seed, B, tile, K, step),
-# independent across frames, but NOT a function of frame index alone.
-
-
-def mc_u_table(info_positions, K: int, N: int):
-    """[128, N] f32: row m = the true-u row for PN offset m (63 rows + zero
-    pad rows — 128 so the kernel can select rows with a one-hot [TB, 128]
-    @ table MXU matmul).  Payload bit i of a frame with offset m is
-    PN[(m + i) % 63] (SC_128.c:179-181); frozen positions are 0."""
-    from polardecoding_tpu.utils.pn import PN_PERIOD, pn_sequence
-
-    pn = pn_sequence()
-    import numpy as np
-
-    tab = np.zeros((128, N), np.float32)
-    I = np.asarray(info_positions)
-    for m in range(PN_PERIOD):
-        idx = (m + np.arange(K)) % PN_PERIOD
-        tab[m, I] = pn[idx]
-    return jnp.asarray(tab)
-
-
-def mc_tables(info_positions, K: int, N: int):
-    """(u_table, x_table) [128, N] f32 each: payload rows and their ENCODED
-    codewords x = u . F^{tensor n} — precomputed so the kernel's refill is
-    two one-hot matmuls with no in-kernel encode."""
-    utab = mc_u_table(info_positions, K, N)
-    xtab = polar_encode(utab.astype(jnp.int8)).astype(jnp.float32)
-    return utab, xtab
-
-
-def mc_delta(batch: int, K: int) -> int:
-    """Per-slot PN-offset advance between a slot's consecutive frames."""
-    return (batch * (K % 63)) % 63
-
-
-def mc_meta_init(batch: int, N: int, K: int):
-    """Initial meta planes [4, B, N]: every slot pending (the first wave's
-    head merge performs the initial fill), m pre-stepped back by delta so the
-    first spare lands on slot s's first frame offset m0(s) = (s*(K%63))%63."""
-    m0 = (jnp.arange(batch, dtype=jnp.int32) * (K % 63)) % 63
-    m_init = (m0 - mc_delta(batch, K)) % 63
-    meta = jnp.zeros((4, batch, N), jnp.float32)
-    meta = meta.at[0].set(jnp.broadcast_to(
-        m_init.astype(jnp.float32)[:, None], (batch, N)))
-    return meta.at[3].set(1.0)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "iters", "flavor", "iter_max", "delta", "drain", "spares", "cadence"))
-def bp_wave_mc_jnp(state, meta, u_table, sigma, bits, iters: int = 8,
-                   flavor: str = "minsum_lut", iter_max: int = 100,
-                   delta: int = 0, drain: bool = False, spares: int = 2,
-                   cadence: int = 1):
-    """jnp twin of the in-kernel-MC wave kernel (gen_bits=False semantics:
-    `bits` [spares, B, N] uint32 supplies the generations' noise).
-    Bit-identical to the Pallas kernel in interpret mode.  Returns
-    (state', meta', stats [B, 3] f32 — per-slot errbit / errblock /
-    frames retired this wave)."""
-    from polardecoding_tpu.ops.noise import gaussian_from_bits
-
-    chk_fn = {"minsum_lut": chk, "minsum_lut_fast": chk_fast,
-              "spa": chk_exact}[flavor]
-    S2, B, N = state.shape
-    n = S2 // 2 - 1
-    f32 = jnp.float32
-    zero = jnp.zeros((B, N), f32)
-    one = jnp.ones((B, N), f32)
-
-    m_in, u_in, it_in, pend_in = meta[0], meta[1], meta[2], meta[3]
-    sigma = jnp.asarray(sigma, f32)
-    inv_s = 1.0 / sigma
-    cB = 2.0 * inv_s
-    m_g, u_g, llr_g = [], [], []
-    for g in range(spares):
-        dm = f32(((g + 1) * delta) % 63)
-        mg = m_in + dm
-        mg = jnp.where(mg >= 63.0, mg - 63.0, mg)
-        ug = u_table[mg[:, 0].astype(jnp.int32)]
-        xg = polar_encode(ug.astype(jnp.int8)).astype(f32)
-        z = gaussian_from_bits(bits[g])
-        m_g.append(mg)
-        u_g.append(ug)
-        sgn = jnp.where(xg > 0.5, -inv_s, inv_s)  # contraction-proof form
-        llr_g.append(cB * (sgn + z))
-
-    def gen_sel(ptr):
-        m_s, u_s, l_s = m_g[0], u_g[0], llr_g[0]
-        for g in range(1, spares):
-            pick = ptr == f32(g)
-            m_s = jnp.where(pick, m_g[g], m_s)
-            u_s = jnp.where(pick, u_g[g], u_s)
-            l_s = jnp.where(pick, llr_g[g], l_s)
-        return m_s, u_s, l_s
-
-    rm = jnp.zeros((B, N), bool) if drain else (pend_in > 0.5)
-    frozen_row = state[n + 1] > 0.0
-    st = jnp.where(rm[None, :, :], 0.0, state)
-    st = st.at[n].set(jnp.where(rm, llr_g[0], state[n]))
-    st = st.at[n + 1].set(state[n + 1])
-    m_c = jnp.where(rm, m_g[0], m_in)
-    u_c = jnp.where(rm, u_g[0], u_in)
-    it_c = jnp.where(rm, zero, it_in)
-    rmf = rm.astype(f32)
-    avail = zero if drain else f32(spares) * one - rmf
-    ptr = rmf
-    pend_c = pend_in if drain else zero
-
-    # mirrors the kernel's unrolled loop exactly: checks only at cadence
-    # boundaries (and always at the last iteration); `since` accumulates
-    # the iterations applied to it_c at each check
-    eb, ebl, fr = zero, zero, zero
-    since = 0
-    for it in range(iters):
-        Ls = [st[i] for i in range(n + 1)]
-        Rs = [st[n + 1 + i] for i in range(n + 1)]
-        Ls, Rs = bp_iteration(Ls, Rs, chk_fn)
-        st = jnp.stack(Ls + Rs, axis=0)
-        since += 1
-        last = it == iters - 1
-        if not ((it + 1) % cadence == 0 or last):
-            continue
-        alive = 1.0 - pend_c
-        it_c = it_c + f32(since) * alive
-        since = 0
-        u8, ok = wave_decide(st, frozen_row[0])
-        u = u8.astype(f32)
-        okm = jnp.broadcast_to(ok[:, None], (B, N)).astype(f32)
-        done = jnp.maximum(okm, (it_c >= f32(iter_max)).astype(f32)) * alive
-        has = (avail > 0.5).astype(f32)
-        retire_now = done * has
-        retire = retire_now if not last else (
-            retire_now + done * (1.0 - has))
-        bad = jnp.abs(u - u_c) * retire
-        eb = eb + bad
-        ebl = ebl + jnp.max(bad, axis=1, keepdims=True)
-        fr = fr + retire
-        m_nx, u_nx, llr_nx = gen_sel(ptr)
-        rm2 = retire_now > 0.5
-        st = jnp.where(rm2[None, :, :], 0.0, st)
-        st = st.at[n].set(jnp.where(rm2, llr_nx, st[n]))
-        st = st.at[n + 1].set(
-            jnp.where(frozen_row, jnp.asarray(FROZEN_R, f32), 0.0))
-        m_c = jnp.where(rm2, m_nx, m_c)
-        u_c = jnp.where(rm2, u_nx, u_c)
-        it_c = jnp.where(rm2, zero, it_c)
-        ptr = ptr + retire_now
-        avail = avail - retire_now
-        if last:
-            pend_c = jnp.maximum(pend_c, done * (1.0 - has))
-    meta = jnp.stack([m_c, u_c, it_c, pend_c], axis=0)
-    stats = jnp.stack([
-        jnp.sum(eb, axis=1), jnp.max(ebl, axis=1), jnp.max(fr, axis=1)
-    ], axis=1)
-    return st, meta, stats
-
-
-def bp_wave_mc(state, meta, u_table, x_table, sigma, seeds, bits=None,
-               iters: int = 8,
-               flavor: str = "minsum_lut", iter_max: int = 100,
-               delta: int = 0, gen_bits: bool = True, drain: bool = False,
-               spares: int = 2, cadence: int = 1, tile: int = 0,
-               bit_gen: str = "tf32"):
-    """Backend dispatch for the in-kernel-MC wave step.  On TPU runs the
-    Pallas kernel (gen_bits=True draws noise bits in-kernel; False takes
-    threefry `bits`); elsewhere the jnp twin (requires bits)."""
-    if jax.default_backend() not in ("cpu", "gpu") and state.shape[1] % 8 == 0:
-        from polardecoding_tpu.ops.pallas.bp_kernel import bp_wave_mc_pallas
-
-        state, meta, stats = bp_wave_mc_pallas(
-            state, meta, u_table, x_table, sigma, seeds, bits, iters=iters,
-            flavor=flavor, iter_max=iter_max, delta=delta, gen_bits=gen_bits,
-            drain=drain, spares=spares, cadence=cadence, tile=tile,
-            bit_gen=bit_gen)
-        return state, meta, stats[:, :3]
-    assert bits is not None, "jnp MC twin needs XLA-side noise bits"
-    return bp_wave_mc_jnp(state, meta, u_table, sigma, bits, iters=iters,
-                          flavor=flavor, iter_max=iter_max, delta=delta,
-                          drain=drain, spares=spares, cadence=cadence)
 
 
 @functools.partial(jax.jit, static_argnames=("iters", "flavor", "checkpoints"))

@@ -7,7 +7,7 @@ SC_128.c:344-365); decided bits back-propagate rightward (`updateBit`,
 SC_128.c:367-392); frozen bits are forced to 0 (SC_128.c:404-410) — in the
 serial order, deciding each frozen bit as 0 at its turn is equivalent.
 
-TPU design (SURVEY §7.3): see models/_compact.py — O(N) compact state, static
+Array design (SURVEY §7.3): see models/_compact.py — O(N) compact state, static
 full-slot slices, `lax.fori_loop` over bits with `lax.switch` over ntz(j).
 Throughput comes from the frame batch axis; the N-step serial chain is the
 intrinsic SC dependency (SURVEY §3.2).

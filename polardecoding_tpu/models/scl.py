@@ -12,7 +12,7 @@ Reference semantics (SCL_1024.c:546-680, CASCL_128.c:538-699):
     the CRC on every path and picks the min-PM passer, falling back to the
     global min-PM (CASCL_128.c:663-698).
 
-TPU design (SURVEY §2.5 "List-parallelism"):
+Array design (SURVEY §2.5 "List-parallelism"):
   - per-path state is the compact O(N) layout of models/_compact.py with
     leading shape [B, L]; path copying is a gather along the L axis of just
     2(N-1) lanes per path (not the reference's O(n N) copyPath);
@@ -162,174 +162,6 @@ def scl_decode(ch_llr, frozen, list_size: int = 8, return_all: bool = False,
     return (u_hat, ties) if return_ties else u_hat
 
 
-def _static_frozen(frozen):
-    """Concrete frozen mask -> static bool tuple, or None when `frozen` is a
-    tracer (user jitted over the mask — rare; every production path closes
-    over a concrete mask, which is what lets the fast kernel specialize its
-    traced program on it)."""
-    if isinstance(frozen, (tuple, list)):
-        return tuple(bool(b) for b in frozen)
-    try:
-        import numpy as _np
-
-        return tuple(bool(b) for b in _np.asarray(frozen))
-    except Exception:
-        return None
-
-
-# (n, L) -> measured-best loop-node width.  Populated ONLY by hardware A/Bs
-# (ab_sclfast.py, interleaved best-of-3); absent configs fall back to the
-# minimal window 2, which won every A/B so far: every info bit forks
-# regardless of wloop, so shrinking the window only removes masked-descent
-# work and converts frozen patterns into vectorized REP/R0 nodes.
-# r3 N=1024 L=8 B=8192 kernel-only: w2 224.5k / w4 205.3k / w8 185.6k fps;
-# r3 requal: L=16 and L=32 also best at w2 (results/hw_queue_r3/).
-_WLOOP_TABLE: dict = {}
-
-
-def default_wloop(n: int, L: int) -> int:
-    """Loop-node width for the frozen-specialized kernel — per-config
-    measured table with a fallback of 2 (see _WLOOP_TABLE provenance)."""
-    return _WLOOP_TABLE.get((n, L), 2)
-
-
-# (n, L) -> T-tile interleave for the fast kernel.  Populated ONLY by
-# true-rate hardware A/Bs (scan-batched past the ~24 ms dispatch floor —
-# the round-3 "tiles are flat" verdict was a floor artifact).  r4
-# kernel-only (results/hw_queue_r4/step{21,24,25,26}.log), N=1024 L=8:
-# T2 +9.7% exact / +6.0% with the R1 flavor; T4 adds +3.9% more but
-# compiles 6x longer (43 min vs 7 min) — T2 ships, T4 stays opt-in via
-# scl_decode_fast(tiles=).  N=128 L=8 (R1): T2 +12.0% (4.53M vs 4.05M).
-_TILES_TABLE: dict = {(10, 8): 2, (7, 8): 2}
-
-
-def default_tiles(n: int, L: int, B: int) -> int:
-    """Measured T-tile default, demoted to 1 whenever the batch cannot be
-    split into T whole lane-tiles (the kernel's layout requirement)."""
-    from polardecoding_tpu.ops.pallas.scl_fast_kernel import frames_per_tile
-
-    T = _TILES_TABLE.get((n, L), 1)
-    while T > 1 and (B % T != 0 or (B // T) % frames_per_tile(L, B // T)):
-        T //= 2
-    return T
-
-
-def _pallas_ok(B: int, N: int, L: int = 1, frozen=None) -> bool:
-    """A whole-decode Pallas kernel wins on TPU backends for every shipped
-    config (see README perf table).  Three generations (kernel docstrings
-    explain the history):
-      static mask (production): frozen-specialized fast kernel
-               (ops/pallas/scl_fast_kernel.py) — paths-in-lanes layout,
-               needs B % frames-per-tile == 0.
-      traced mask, L <= 8:  per-path-refs kernel (scl_subtree_kernel.py).
-      traced mask, L >= 16: paths-in-lanes kernel (scl_tree_kernel.py)."""
-    backend = jax.default_backend()
-    if backend in ("cpu", "gpu") or N < 32 or L > 128:
-        return False
-    if frozen is not None and _static_frozen(frozen) is not None:
-        from polardecoding_tpu.ops.pallas.scl_fast_kernel import (
-            frames_per_tile,
-        )
-
-        return B % frames_per_tile(L, B) == 0
-    if L <= 8:
-        from polardecoding_tpu.ops.pallas.scl_subtree_kernel import _pick_tile
-
-        tile = _pick_tile(N, L) if B > 128 else min(_pick_tile(N, L), B)
-        return B % tile == 0
-    from polardecoding_tpu.ops.pallas.scl_tree_kernel import frames_per_tile
-
-    return B % frames_per_tile(L, B) == 0
-
-
-def _scl_kernel(ch_llr, frozen, list_size, r1=0):
-    """Dispatch: frozen-specialized fast kernel whenever the mask is static
-    (every production config — measured 1.78x the per-path kernel at the
-    binding N=1024 L=8 config, HW-parity-tested at all {N}x{L}); otherwise
-    the list-size-appropriate earlier generation.  r1 > 0 selects the
-    approximate bounded-fork rate-1 flavor (fast kernel only)."""
-    fz = _static_frozen(frozen)
-    if fz is not None:
-        from polardecoding_tpu.ops.pallas.scl_fast_kernel import (
-            scl_decode_fast,
-        )
-
-        n = ch_llr.shape[-1].bit_length() - 1
-        B = ch_llr.shape[0]
-        import os
-
-        # measurement hook for the r5 in-kernel channel-replication A/B
-        # (scripts/ab_sclmc.py).  The in-kernel path measured -3.6 % at
-        # B=16384 (results/hw_queue_r5/step11 — the lane-concat expansion
-        # costs more than the XLA pre-tile it saves), so the default stays
-        # the XLA tile; the flag and its parity test remain as the record.
-        ch_rep = os.environ.get("PD_SCL_CHREP", "0") == "1"
-        return scl_decode_fast(ch_llr, fz, list_size=list_size,
-                               wloop=default_wloop(n, list_size), r1=r1,
-                               tiles=default_tiles(n, list_size, B),
-                               ch_rep=ch_rep)
-    if r1 > 0:
-        # a traced (non-static) mask cannot reach the frozen-specialized
-        # fast kernel, so the approximate flavor is unavailable: fall back
-        # to the EXACT legacy kernels loudly rather than crashing or
-        # silently mislabeling the run (advisor r4)
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "scl r1=%d requested with a traced frozen mask: the fast "
-            "kernel needs a static mask, decoding EXACT semantics instead",
-            r1)
-    if list_size <= 8:
-        from polardecoding_tpu.ops.pallas.scl_subtree_kernel import (
-            scl_decode_subtree,
-        )
-
-        return scl_decode_subtree(ch_llr, frozen, list_size=list_size)
-    from polardecoding_tpu.ops.pallas.scl_tree_kernel import scl_decode_tree
-
-    return scl_decode_tree(ch_llr, frozen, list_size=list_size)
-
-
-def scl_decode_auto(ch_llr, frozen, list_size: int = 8,
-                    return_all: bool = False, return_ties: bool = False,
-                    r1: int = 0):
-    """Dispatch to the VMEM-resident whole-decode Pallas kernel where it
-    wins.  r1 > 0 enables the approximate bounded-fork rate-1 flavor
-    (TPU fast kernel only; the jnp fallback path stays exact — flavor
-    presets are therefore TPU-backed, like the Pallas-only wave engine)."""
-    B, N = ch_llr.shape
-    if _pallas_ok(B, N, list_size, frozen):
-        u_all, PM, ties = _scl_kernel(ch_llr, frozen, list_size, r1=r1)
-        if return_all:
-            return (u_all, PM, ties) if return_ties else (u_all, PM)
-        best = jnp.argmin(PM, axis=-1)
-        u_hat = jnp.take_along_axis(u_all, best[:, None, None], axis=1)[:, 0]
-        return (u_hat, ties) if return_ties else u_hat
-    if r1 > 0:
-        # the jnp fallback decodes EXACT semantics — a run labeled *_FASTR1
-        # must not silently measure a different decoder (advisor r4)
-        import logging
-
-        logging.getLogger(__name__).warning(
-            "scl r1=%d requested but the Pallas fast kernel is unavailable "
-            "(backend %s, B=%d): falling back to the EXACT jnp decoder",
-            r1, jax.default_backend(), B)
-    return scl_decode(ch_llr, frozen, list_size=list_size,
-                      return_all=return_all, return_ties=return_ties)
-
-
-def sc_decode_auto(ch_llr, frozen):
-    """SC via the SCL kernel at L=1 on TPU (the L=1 path-metric rule decides
-    by LLR sign, identical to SC)."""
-    B, N = ch_llr.shape
-    if _pallas_ok(B, N, 1, frozen):
-        u_all, _, _ = _scl_kernel(ch_llr, frozen, 1)
-        return u_all[:, 0]
-    from polardecoding_tpu.models.sc import sc_decode
-
-    return sc_decode(ch_llr, frozen)
-
-
 def cascl_select(u_all, PM, info_positions, crc_R):
     """CA-SCL final selection (ref: CASCL_128.c:663-698): among CRC-passing
     paths pick min PM; if none pass, global min PM.
@@ -353,11 +185,11 @@ def cascl_select(u_all, PM, info_positions, crc_R):
 
 
 def cascl_decode(ch_llr, frozen, info_positions, crc_R, list_size: int = 8,
-                 return_ties: bool = False, r1: int = 0):
+                 return_ties: bool = False):
     """CRC-aided SCL: SCL pass + CRC-filtered min-PM selection."""
-    u_all, PM, ties = scl_decode_auto(
+    u_all, PM, ties = scl_decode(
         ch_llr, frozen, list_size=list_size, return_all=True,
-        return_ties=True, r1=r1,
+        return_ties=True,
     )
     u_hat, _ = cascl_select(u_all, PM, info_positions, crc_R)
     return (u_hat, ties) if return_ties else u_hat

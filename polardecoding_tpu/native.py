@@ -20,13 +20,36 @@ import subprocess
 import numpy as np
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_HERE, "native", "golden_ref.c")
 _BUILD = os.path.join(_HERE, "native", "build")
 _LIB = os.path.join(_BUILD, "libgolden_ref.so")
 
 
 class NativeUnavailable(RuntimeError):
     pass
+
+
+def build_shared(src: str, lib: str, argv) -> str:
+    """Compile native/<src> into native/build/<lib> unless the library is
+    newer than its source; returns the library path.  `argv(src_path,
+    out_path)` gives the compiler command.  The output is written to a
+    temporary name and renamed, so concurrent builders never load a
+    half-written library.  Raises NativeUnavailable when the command fails."""
+    src_path = os.path.join(_HERE, "native", src)
+    out = os.path.join(_BUILD, lib)
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src_path):
+        return out
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(argv(src_path, tmp), check=True, capture_output=True,
+                       text=True)
+    except FileNotFoundError as e:
+        raise NativeUnavailable(f"compiler not found: {e}") from None
+    except subprocess.CalledProcessError as e:
+        raise NativeUnavailable(
+            f"building {src} failed:\n{e.stdout}\n{e.stderr}") from None
+    os.replace(tmp, out)
+    return out
 
 
 _lib = None
@@ -36,19 +59,17 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        os.makedirs(_BUILD, exist_ok=True)
-        for cc in ("cc", "gcc", "clang"):
-            try:
-                subprocess.run(
-                    [cc, "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC, "-lm"],
-                    check=True, capture_output=True,
-                )
-                break
-            except (FileNotFoundError, subprocess.CalledProcessError) as e:
-                err = e
-        else:
-            raise NativeUnavailable(f"no working C compiler: {err}")
+    err = None
+    for cc in ("cc", "gcc", "clang"):
+        try:
+            build_shared("golden_ref.c", "libgolden_ref.so",
+                         lambda src, out: [cc, "-O2", "-shared", "-fPIC",
+                                           "-o", out, src, "-lm"])
+            break
+        except NativeUnavailable as e:
+            err = e
+    else:
+        raise NativeUnavailable(f"no working C compiler: {err}")
     lib = ctypes.CDLL(_LIB)
     lib.pd_golden_noise.argtypes = [
         ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_double,

@@ -9,7 +9,7 @@ updatePM.pdf).  The thresholds {0.196, 0.433, 0.71, 1.05, 1.508, 2.252, 4.5}
 and values {0.65, 0.55, 0.45, 0.35, 0.25, 0.15, 0.05, 0} are normative
 (SURVEY §7 "hard parts"): off-by-a-bin changes the published curves.
 
-TPU mapping: the piecewise lookup is evaluated as a sum of step functions
+Array mapping: the piecewise lookup is evaluated as a sum of step functions
 (7 compares + adds per lookup), which is branchless, fuses into surrounding
 elementwise work, and vectorizes over any batch shape.  An exact SPA flavor
 (2 atanh(tanh tanh)) is provided for the BP128out_SPA.txt A/B variant.
@@ -41,10 +41,9 @@ def lut_correction(x):
     bit-identical to the reference's if/else ladder in any precision,
     including the strict `<` bin edges (a value exactly at a threshold
     falls in the upper bin) and NaN (all compares false -> bin 0, as in
-    the linear chain).  The tree form matters on TPU: the SCL fast kernel
-    is latency-bound on its serial chk/PHI chains (ROOFLINE round-4 phase
-    ablation), and the tree cuts the lookup's dependent-select depth from
-    7 to 3 at identical op count."""
+    the linear chain).  The tree cuts the lookup's dependent-select depth
+    from 7 to 3 at identical op count; native/bp_kernel.cu uses the same
+    tree."""
     dt = x.dtype
     return jnp.broadcast_to(_lut_tree(x, 0, len(LUT_VALUES), dt), x.shape)
 
@@ -64,14 +63,13 @@ def chk(a, b):
 
 
 def chk_fast(a, b):
-    """Algebraic rewrite of `chk` with ~12% fewer VPU ops:
+    """Algebraic rewrite of `chk` with ~12% fewer elementwise ops:
 
         sign(a) sign(b) min(|a|, |b|) == (|a+b| - |a-b|) / 2   (exact in R)
 
     so  chk(a, b) == 0.5 (|a+b| - |a-b|) + delta(|a+b|) - delta(|a-b|),
     reusing the |a+b| / |a-b| terms the LUT already needs and dropping the
-    sign/min/abs(a)/abs(b) chain entirely (docs/ROOFLINE.md "where the
-    remaining ops go").  NOT bit-identical to the reference: the halved
+    sign/min/abs(a)/abs(b) chain entirely.  NOT bit-identical to the reference: the halved
     difference rounds differently than the exact sign·min (ulp-level), so
     this is an opt-in flavor ("minsum_lut_fast") gated on the statistical
     BLER study, never the golden-parity default."""

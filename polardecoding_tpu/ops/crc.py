@@ -10,7 +10,7 @@ Three reference styles (SURVEY §2.2):
 
 Polynomials are stored as exponent tuples; the check is a GF(2) matvec
 syndrome = C . R mod 2 with R[i] = D^i mod g(D) precomputed on host, so a batch
-of L paths x B frames checks in one int matmul + parity reduce (MXU-friendly).
+of L paths x B frames checks in one int matmul + parity reduce.
 The systematic parity matrix Gc is derived (Gc[i][j] = coeff_j of D^{r+i} mod g)
 rather than hard-coded; tests confirm [Gc.v || v] always passes the divisor
 check, matching the reference's table by construction.
@@ -79,8 +79,8 @@ def check_matrix(exponents, length: int) -> np.ndarray:
 def crc_syndrome(codeword_bits, R):
     """Batched GF(2) syndrome: codeword_bits [..., length] x R [length, r].
 
-    Uses an integer matmul + bit-parity, which XLA maps onto the MXU for large
-    batch x list products."""
+    Uses an integer matmul + bit-parity (int32 operands and accumulation:
+    exact, no precision setting involved)."""
     acc = jnp.matmul(
         codeword_bits.astype(jnp.int32),
         jnp.asarray(R, dtype=jnp.int32),

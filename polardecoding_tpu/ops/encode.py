@@ -60,17 +60,16 @@ def info_sub_generator(info_positions, N: int) -> np.ndarray:
 
 
 def encode_info_mxu(w, g_rows) -> jnp.ndarray:
-    """Codeword x = (w . G_I) mod 2 as ONE MXU matmul — bit-exact vs the
-    butterfly path, targeting the systolic array the min/sign/LUT decode
-    arithmetic cannot use (docs/ROOFLINE.md "machine model").
+    """Codeword x = (w . G_I) mod 2 as ONE matmul — bit-exact vs the
+    butterfly path, on the matrix units the min/sign/LUT decode arithmetic
+    cannot use (the tensor cores on the GPU).
 
-    The XLA-side refill work around the wave/frame-step decode kernels is a
-    measurable slice of step time (profile: scatter+encode ~2.8% of the wave
-    step at N=1024 B=16384 — many small int8 xor/reshape passes).  On the MXU
-    the whole encode is [B, K']x[K', N] bf16: 0/1 values are exact in bf16,
-    products are exact, and the f32 accumulation of at most K' <= 2^24 ones
-    is exact, so  x = acc - 2*floor(acc/2)  reproduces GF(2) exactly
-    (tested bit-equal in tests/test_encode.py).
+    The whole encode is [B, K']x[K', N] in bf16 with float32 accumulation
+    (`preferred_element_type`; default precision, which for bf16 operands is
+    the native bf16 product): 0/1 values are exact in bf16, products are
+    exact, and the f32 accumulation of at most K' <= 2^24 ones is exact, so
+    x = acc - 2*floor(acc/2)  reproduces GF(2) exactly (tested bit-equal in
+    tests/test_core_ops.py and on the card in chip_smoke.py).
 
     w: [..., K'] 0/1 bits; g_rows: uint8 [K', N] from `info_sub_generator`.
     Returns f32 0.0/1.0 [..., N].

@@ -1,9 +1,9 @@
-"""Device-mesh helpers: the TPU-native replacement for the reference's manual
+"""Device-mesh helpers: the data-parallel replacement for the reference's manual
 multi-seed scale-out (SURVEY §2.5).
 
 All distribution in this workload is data-parallelism over i.i.d. Monte-Carlo
-frames: the batch axis is sharded over every available chip (ICI within a
-slice, DCN across slices handled identically by jax.sharding), and the only
+frames: the batch axis is sharded over every available device (within a host
+and across hosts alike, by jax.sharding), and the only
 communication is the scalar error/frame-counter reduction XLA inserts for the
 final sums — communication-trivial by design (SURVEY §5).
 """

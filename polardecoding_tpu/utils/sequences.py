@@ -1,6 +1,6 @@
 """Code construction: reliability sequences, info sets, frozen masks, bit reversal.
 
-TPU-first equivalents of the reference's construction layer:
+Array-first equivalents of the reference's construction layer:
   - 5G reliability tables   (ref: SC_128.c:42-51, SC_1024.c:42-90)
   - info set  I[i] = Q[N-K+i], frozen mask inI   (ref: SC_128.c:139-147)
   - CA-SCL info set reserves K+r most reliable   (ref: CASCL_128.c:169-177)

@@ -1,4 +1,4 @@
-"""Reproduce the reference's published BLER curves end to end on hardware.
+"""Reproduce the reference's published BLER curves end to end on the GPU.
 
 Runs adaptive Monte-Carlo sweeps for every family at the reference's SNR
 grids, writes results/<preset>.json, results/curves_{128,1024}.png and
@@ -66,7 +66,7 @@ def main():
     lines = [
         "# BLER reproduction vs reference archives",
         "",
-        "Our adaptive-MC results (this hardware run) against the reference's",
+        "Our adaptive-MC results against the reference's",
         "published tables (BASELINE.md, transcribed from its result archives).",
         "Counter-based RNG (not the reference's Ranq1 stream), so agreement is",
         "statistical: the binomial CI is ~2/sqrt(errblocks) relative.",
@@ -92,4 +92,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from polardecoding_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -82,4 +82,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from polardecoding_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()

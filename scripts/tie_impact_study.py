@@ -1,8 +1,8 @@
 """Quantify the keep-exactly-L vs strict-below-median policy divergence.
 
-Round-3 finding: the PM-tie counter ("Oops!" condition, SCL_1024.c:620-633)
-is NOT measure-zero at L=32 — ~1% of production MC frames hit at least one
-exact median tie (results/r3_requal/CASCL_1024_L32.json pm_ties).  This
+The PM-tie counter ("Oops!" condition, SCL_1024.c:620-633) is NOT
+measure-zero at L=32 — ~1% of production MC frames hit at least one exact
+median tie (results/REPRODUCTION_EXTRA.md, "PM ties at L=32").  This
 study decodes the SAME tie frames under BOTH policies with the jnp engine
 (models/scl.scl_decode strict_median flag) and compares block outcomes —
 converting the documented divergence from "observable" to "quantified".
@@ -111,4 +111,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from polardecoding_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,4 +1,4 @@
-"""End-to-end verification drive on real hardware: decode through the public
+"""End-to-end verification drive on the GPU: decode through the public
 harness at several SNR points and assert BLER within confidence intervals of
 the reference tables (BASELINE.md).  Used by .claude/skills/verify.
 
@@ -73,4 +73,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from polardecoding_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
     main()

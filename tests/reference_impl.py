@@ -2,7 +2,7 @@
 
 This is the test oracle: a pointer-free but otherwise faithful re-expression of
 the reference C programs' graph algorithms, used to validate the vectorized
-TPU engines on small N and random LLR inputs.  It implements BOTH factor-graph
+JAX engines on small N and random LLR inputs.  It implements BOTH factor-graph
 wirings explicitly (Lee: separation 2^i, ref SC_128.c:317-342; Kao: separation
 2^(n-1-i) with bit-reversal IO, ref SC_128_fag.c:333-358) so the production
 code's "Kao == relabeled Lee" reduction is itself under test.

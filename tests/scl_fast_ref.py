@@ -1,20 +1,19 @@
-"""Numpy float32 twin of the frozen-specialized SCL fast kernel.
+"""Numpy float32 spec of a frozen-specialized (fast-SSC-list) SCL decoder.
 
-An INDEPENDENT straight-line implementation of the kernel's static node
-taxonomy (ops/pallas/scl_fast_kernel.py) with explicit per-path arrays and
-full path copies instead of lanes/sigma bookkeeping:
+A straight-line implementation of the static node taxonomy a whole-decode
+SCL kernel specialises on (R0, REP, mixed/SPC and all-info loop nodes, and
+the bounded-fork rate-1 node), with explicit per-path arrays and full path
+copies:
 
   * exact mode (r1min=0) mirrors the reference SCL semantics node-for-node
-    and is validated against models/scl.scl_decode (the float64-backed jnp
-    oracle) — proving the twin itself;
-  * r1 mode (r1min>0) mirrors run_r1's bounded-fork rate-1 rule bit-for-bit
-    (hard PM, magnitude-ordered forks, identical tie-breaks), giving the
-    APPROXIMATE flavor its own oracle and the parity suite a falsification
-    witness against the exact engine (round-3 verdict item 2: "test, don't
-    assume").
+    and is validated against models/scl.scl_decode (tests/test_scl_ref.py);
+  * r1 mode (r1min>0) is the bounded-fork rate-1 rule (hard PM,
+    magnitude-ordered forks, fixed tie-breaks): the spec of the approximate
+    fast flavour, which is not survivor-set preserving and so needs a BLER
+    qualification.
 
-All arithmetic is IEEE float32 with the same operation association as the
-kernel, so agreement is BIT equality, not closeness.  Selection order: the
+All arithmetic is IEEE float32 with the association of models/scl.py, so
+agreement with the engine is BIT equality, not closeness.  Selection order: the
 2L candidates are ordered [PHI(u=0) of paths 0..L-1, PHI(u=1) of paths
 0..L-1] and kept by stable sort on PM — exactly the kernel's rank
 tie-breaks (cand0 beats cand1 on ties; lower path index beats higher).

@@ -43,8 +43,20 @@ def test_bpr_runner():
 
 
 def test_cli_bench_smoke(capsys):
-    """`cli bench` must stay wired to bench.py's real API (it silently broke
-    when bench() was renamed bench_step in round 2)."""
-    main(["bench", "--preset", "SC_128", "--batch", "64"])
-    out = json.loads(capsys.readouterr().out)
-    assert out["preset"] == "SC_128" and out["frames_per_sec"] > 0
+    """`cli bench` is a measurement, so with no GPU it refuses instead of
+    timing the CPU; the bench.py API it is wired to (bench_step, renamed
+    once and silently broken then) still runs here."""
+    import importlib.util
+    import os
+
+    import pytest
+
+    with pytest.raises(SystemExit, match="no GPU"):
+        main(["bench", "--preset", "SC_128", "--batch", "64"])
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "bench.py")
+    spec = importlib.util.spec_from_file_location("bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fps, compile_s = mod.bench_step("SC_128", 64, steps=1)
+    assert fps > 0 and compile_s > 0

@@ -207,18 +207,39 @@ def test_crc_check_matches_long_division():
 
 
 def test_crc6_data_file_consistency():
-    """CRC_6.dat in the reference is a 63 x 6 systematic parity table for up to
-    63 message bits; our derived Gc must match it row-for-row."""
-    rows = []
-    with open("/root/reference/CRC_6.dat", encoding="utf-16") as f:
-        for line in f:
-            parts = line.split()
-            if parts:
-                rows.append([int(x) for x in parts])
-    ref_gc = np.array(rows, dtype=np.uint8)
-    ours = crc_ops.systematic_parity_matrix(crc_ops.CRC6_EXPONENTS, ref_gc.shape[0])
-    assert ours.shape == ref_gc.shape
-    assert (ours == ref_gc).all()
+    """The reference's CRC_6.dat is a 63 x 6 systematic parity table, row i
+    = D^(6+i) mod g(D) for g = D^6 + D^5 + 1 (CASCL_128.c:517-536 checks a
+    codeword by long division).  Rebuild that table here by an independent
+    polynomial long division and compare Gc row for row."""
+    exps = crc_ops.CRC6_EXPONENTS
+    r = max(exps)
+
+    def d_power_mod_g(k):
+        # coefficients of D^k mod g(D), index = power, by long division
+        c = np.zeros(max(k + 1, r), np.uint8)
+        c[k] = 1
+        for deg in range(k, r - 1, -1):
+            if c[deg]:
+                for e in exps:
+                    c[deg - r + e] ^= 1
+        return c[:r]
+
+    want = np.stack([d_power_mod_g(r + i) for i in range(63)])
+    ours = crc_ops.systematic_parity_matrix(exps, 63)
+    assert ours.shape == want.shape == (63, 6)
+    assert (ours == want).all()
+    # D^6 = D^5 + 1 (mod g): the table's first row
+    assert ours[0].tolist() == [1, 0, 0, 0, 0, 1]
+    # systematic property: [p || v] with p = v . Gc leaves no remainder
+    rng = np.random.default_rng(6)
+    for _ in range(20):
+        v = rng.integers(0, 2, size=63).astype(np.uint8)
+        p = (v @ ours) % 2
+        cw = np.concatenate([p, v])
+        rem = np.zeros(r, np.uint8)
+        for k in np.nonzero(cw)[0]:
+            rem ^= d_power_mod_g(int(k))
+        assert not rem.any()
 
 
 # ---------------------------------------------------------------- CHK / PHI

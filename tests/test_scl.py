@@ -117,7 +117,7 @@ def test_cascl_end_to_end_clean():
 
 
 def test_pm_tie_counter():
-    """The "Oops!" observability counter (VERDICT: SCL_1024.c:620-633): zero
+    """The "Oops!" observability counter (SCL_1024.c:620-633): zero
     on generic continuous-noise frames, positive when the 2L PM candidates
     genuinely tie at the median (all-zero LLRs make every branch cost the
     same LUT penalty)."""
